@@ -1,5 +1,5 @@
-"""Fused filter-sum-product kernel tests (interpret mode on CPU; real
-lowering exercised by bench/TPU smoke runs)."""
+"""Fused filter-sum-product reduction (ops/filter_reduce.py): the jitted
+reduction, the plan matcher, and Q6 through Task against numpy."""
 
 import numpy as np
 import pandas as pd
@@ -22,7 +22,7 @@ def test_filtered_sum_product_interpret(n):
     got = int(FR.filtered_sum_product(
         [jnp.asarray(price), jnp.asarray(disc), jnp.asarray(date),
          jnp.asarray(qty)],
-        ranges, 0, 1, jnp.int32(n_active), interpret=True))
+        ranges, 0, 1, jnp.int32(n_active)))
     m = ((date >= 8700) & (date <= 9064) & (disc >= 5) & (disc <= 7)
          & (qty <= 2399))
     m[n_active:] = False
@@ -43,9 +43,37 @@ def test_match_filter_sum_q6_shape():
     while not isinstance(node, P.AggregationNode):
         node = node.source
     chain = collapse_chain(node.source)
-    stats = {"l_discount": (0, 10)}
+    # both factors need stats: they bound each row's product
+    assert FR.match_filter_sum(node, chain, {"l_discount": (0, 10)}) is None
+    stats = {"l_discount": (0, 10), "l_extendedprice": (90000, 10_495_000)}
     spec = FR.match_filter_sum(node, chain, stats)
     assert spec is not None
     assert spec.b_col == "l_discount"
     assert spec.a_col == "l_extendedprice"
+    assert spec.max_abs_product == 104_950_000
     assert len(spec.ranges) == 3
+
+
+@pytest.mark.parametrize("rows_per_split", [4096, 20_000, 65536])
+def test_q6_exact_across_split_sizes(rows_per_split):
+    """Q6 through Task takes the fused reduction and matches numpy exactly
+    whatever the split size: padded tail batches and int128 accumulation
+    across batches."""
+    from velox_tpu.common import metrics as M
+    from velox_tpu.connectors.tpch import register_tpch
+    from velox_tpu.exec.task import Task
+    from velox_tpu.testing import tpch_numpy as R
+    from velox_tpu.tpch import tpch_plan
+    cid = f"tpch-q6-{rows_per_split}"
+    conn = register_tpch(0.01, connector_id=cid,
+                         rows_per_split=rows_per_split)
+    before = M.reporter().snapshot()["counters"].get(
+        M.K_FILTER_SUM_KERNEL, 0)
+    out = Task(tpch_plan(6, connector_id=cid)).run()
+    assert M.reporter().snapshot()["counters"][M.K_FILTER_SUM_KERNEL] \
+        == before + 1
+    assert len(conn.default_splits("lineitem")) > 1
+    exp = R.q6(R.TpchArrays(conn))
+    got = {"revenue": np.asarray(
+        [int(v.scaleb(4)) for v in out.column("revenue").to_pylist()])}
+    R.check("q6", got, exp)

@@ -46,7 +46,7 @@ def test_scan_round_trip(hive, tmp_path):
         ["k", "v"]).reset_index(drop=True)
     exp = df[["k", "v", "s"]].sort_values(["k", "v"]).reset_index(drop=True)
     np.testing.assert_array_equal(got.k, exp.k)
-    np.testing.assert_allclose(got.v, exp.v, rtol=1e-6)  # TPU f64 ~48 bits
+    np.testing.assert_allclose(got.v, exp.v, rtol=1e-6)
     np.testing.assert_array_equal(got.s, exp.s)
 
 

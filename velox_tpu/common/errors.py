@@ -4,7 +4,7 @@ Role parity: ``velox/common/base/VeloxException.h`` — user errors
 (VeloxUserError: bad input data, div-by-zero, overflow, cast failures)
 vs runtime errors (VeloxRuntimeError: engine invariant violations).
 
-TPU-first error CHANNEL: dense masked execution cannot raise per row
+Error CHANNEL: dense masked execution cannot raise per row
 inside a compiled program, so checked operations flag an error mask on
 the EvalCtx (expression/eval.py); supersteps reduce it to a traced
 per-batch count carried on the batch (vector/device.py DeviceBatch.errors)

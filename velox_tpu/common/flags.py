@@ -83,12 +83,6 @@ def all_flags() -> Dict[str, Any]:
 define_flag("dbgen_threads", 0,
             "native TPC-H generator threads (0 = hardware concurrency)",
             int)
-define_flag("pallas_enabled", True,
-            "use Pallas kernels on TPU (the avx2/bmi2 analogue: toggles "
-            "the hand-written kernel tier)", bool)
-define_flag("compile_cache_dir", "",
-            "persistent XLA compile cache dir (empty = default "
-            "~/.cache/velox_tpu_jax)", str)
 define_flag("ssd_cache_dir", "",
             "SSD tier directory for the scan cache (empty = disabled "
             "unless the connector configures one)", str)

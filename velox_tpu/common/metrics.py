@@ -81,6 +81,8 @@ K_JOIN_BUILD_OFFLOADS = "velox_tpu.join.build_host_offloads"
 K_SPILL_DISK_WRITES = "velox_tpu.spill.disk_writes"
 K_JIT_PROGRAMS = "velox_tpu.jit.programs_built"
 K_SORT_OFFLOADS = "velox_tpu.sort.host_offloads"
+# lax.sort permutation programs traced (exec/sort.py sort_perm_key)
+K_SORT_PROGRAMS = "velox_tpu.sort.lax_sort_programs"
 K_SPLITS_PRUNED = "velox_tpu.scan.splits_pruned"
 K_GROUPED_EXECUTIONS = "velox_tpu.task.grouped_executions"
 K_EXCHANGE_OVERFLOWS = "velox_tpu.exchange.page_overflows"

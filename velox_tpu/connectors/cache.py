@@ -3,7 +3,7 @@
 Role parity: ``velox/common/caching/AsyncDataCache.h:698`` — the reference
 caches decoded file chunks in RAM so repeated scans skip IO. Here the cached
 unit is the *staged device batch* of one split (generation/decode + host->
-device upload are the expensive ingest steps on TPU), keyed by
+device upload are the expensive ingest steps), keyed by
 (connector, table, columns, split, capacity), with a byte budget and LRU
 eviction. The SSD tier (``SsdTier``) mirrors ``common/caching/SsdCache.h``:
 entries evicted from HBM persist to a disk directory with a checkpointed

@@ -2,7 +2,7 @@
 
 Role parity: ``velox/connectors/hive`` (HiveDataSource splits/partitions,
 HiveDataSink) + the dwio reader stack. Per SURVEY.md §7.4, file decoding on
-the TPU is out of scope: pyarrow's Parquet and ORC readers play the role of
+the device is out of scope: pyarrow's Parquet and ORC readers play the role of
 the dwio readers (dwio/parquet; the ORC flavor of dwio/dwrf — DWRF proper,
 Meta's pre-ORC fork, has no host decoder in this image and stays out of
 scope), and this connector supplies the split model (one split = a

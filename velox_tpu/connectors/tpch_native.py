@@ -35,6 +35,12 @@ def _load():
     return _lib
 
 
+def available() -> bool:
+    """True when the native generator compiled and loaded (otherwise the
+    numpy generator in tpch.py runs)."""
+    return _load() is not None
+
+
 def _ptr(arr: Optional[np.ndarray], ctype):
     if arr is None:
         return ctypes.POINTER(ctype)()

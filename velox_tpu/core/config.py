@@ -1,7 +1,7 @@
 """Per-query configuration.
 
 Role parity: ``velox/core/QueryConfig.h`` — string-keyed session properties
-with typed accessors. Keys are a TPU-relevant subset: batch sizing replaces
+with typed accessors. Keys are a device-relevant subset: batch sizing replaces
 the reference's per-operator byte budgets (static shapes make capacity the
 unit of memory), spill knobs become host-offload knobs.
 """

@@ -526,8 +526,8 @@ class TopNRowNumberNode(PlanNode):
 
 @dataclass(frozen=True)
 class LocalPartitionNode(PlanNode):
-    """In-process repartition. Parity: core/PlanNode.h:1171. On TPU this is
-    a reshard across the chips of one host (mesh sub-axis)."""
+    """In-process repartition. Parity: core/PlanNode.h:1171. On a mesh this
+    is a reshard across the devices of one host (mesh sub-axis)."""
     source: PlanNode = None
     kind: str = "gather"  # gather | repartition | round_robin
     keys: Tuple[ex.TypedExpr, ...] = ()
@@ -587,10 +587,9 @@ class LocalMergeNode(PlanNode):
     """Ordered gather: re-establishes a total order over a source whose
     sorted runs arrive interleaved (multi-driver pipelines). Parity:
     core/PlanNode.h:1071 (LocalMergeNode + TreeOfLosers) — but the
-    merge IS a re-sort here: a streaming searchsorted merge measured
-    ~0.5 s/M rows on this TPU vs ~9.5 ms/M for lax.sort over packed
-    keys, so k-way re-sorting the gathered runs is the faster program
-    by ~50x (exec/sort.py sort_perm_key)."""
+    merge IS a re-sort here: one lax.sort over packed keys
+    (exec/sort.py sort_perm_key) beat a streaming searchsorted merge on
+    the engine's first accelerator; not yet measured on the H100."""
     source: PlanNode = None
     keys: Tuple[ex.FieldAccess, ...] = ()
     orders: Tuple[SortOrder, ...] = ()
@@ -607,8 +606,8 @@ class LocalMergeNode(PlanNode):
 class MergeExchangeNode(PlanNode):
     """Ordered distributed exchange consumer: pages from remote tasks
     are drained, then the total order is re-established by one device
-    sort (see LocalMergeNode for why re-sort beats a streaming merge on
-    TPU). Parity: core/PlanNode.h:1037 (MergeExchangeNode)."""
+    sort (see LocalMergeNode for why it re-sorts instead of streaming a
+    merge). Parity: core/PlanNode.h:1037 (MergeExchangeNode)."""
     row_type: T.DataType = None
     keys: Tuple[ex.FieldAccess, ...] = ()
     orders: Tuple[SortOrder, ...] = ()

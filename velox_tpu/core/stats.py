@@ -6,11 +6,11 @@ normalized-key layouts from observed value ranges. Here ranges come from
 connector metadata (``Connector.column_stats``) and propagate statically
 through the plan, driving:
 
-* normalized-key bit packing for radix sort/group-by (exec/sort.py):
-  a key column with a known (min, max) contributes ceil(log2(range)) bits
-  instead of full 32/64-bit words — fewer radix passes, smaller compiled
+* normalized-key bit packing for sort/group-by (exec/sort.py): a key
+  column with a known (min, max) contributes ceil(log2(range)) bits
+  instead of full 32/64-bit words — fewer u64 sort lanes, smaller compiled
   programs;
-* the fused filter-reduce kernel's limb-safety proof (ops/filter_reduce.py).
+* the fused filter-reduce's int64 overflow bound (ops/filter_reduce.py).
 
 Stats are (min, max) STORAGE-int bounds and must be true bounds: the sort
 packs values as ``value - min`` without clipping.

@@ -1,6 +1,6 @@
 """Batch-level utilities: concat, compaction, chunking.
 
-Compaction (moving active rows to the front) is the TPU analogue of the
+Compaction (moving active rows to the front) is the device analogue of the
 reference's selection-vector materialization — done only at operator
 boundaries that profit (exchange, buffered sorts), per SURVEY.md §7.1.
 """
@@ -81,8 +81,7 @@ def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
 def compact(batch: DeviceBatch) -> DeviceBatch:
     """Move active rows to the front (stable), preserving order.
 
-    cumsum + scatter (no sort: lax.sort compile cost on TPU is prohibitive,
-    see exec/sort.py)."""
+    cumsum + scatter, no sort."""
     cap = batch.capacity
     dense = jnp.cumsum(batch.mask.astype(jnp.int32)) - 1
     target = jnp.where(batch.mask, dense, jnp.int32(cap))

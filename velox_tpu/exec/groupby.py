@@ -3,7 +3,7 @@
 Role parity: ``velox/exec/GroupingSet.cpp`` + ``velox/exec/HashTable.cpp``
 (groupProbe / kArray / kNormalizedKey / kHash modes, HashTable.h:122).
 
-TPU-first redesign (SURVEY.md §7.1):
+Device-first redesign (SURVEY.md §7.1):
 
   * **array mode** (parity: kArray, HashTable.h:119): when every key has a
     small known domain (dictionary-encoded strings, booleans), the group id
@@ -11,8 +11,9 @@ TPU-first redesign (SURVEY.md §7.1):
     aggregation is one ``segment_sum`` per state. No sort, no probe.
   * **hash mode** (parity: kNormalizedKey/kHash): the scatter-probe device
     hash table (exec/hashtable.py) assigns every row a slot; addends are
-    segment-reduced by slot and groups compacted to a dense prefix. No
-    sorting — XLA:TPU lax.sort compile cost is prohibitive (exec/sort.py).
+    segment-reduced by slot and groups compacted to a dense prefix. No sorting:
+    chosen for the engine's first accelerator, where lax.sort compiles were
+    slow; not yet measured on the H100.
 
 Both modes are pure traced JAX — one compiled program per (schema,
 capacity). Partial/final split (velox AggregationNode steps) reuses the same
@@ -105,9 +106,9 @@ def reduce_array_mode(
     small = domain <= 64
     for data, combine in addends:
         if small and data.ndim == 1:
-            # tiny domains (Q1-style dict keys): one masked DENSE
-            # reduction per group id — int64 scatter-adds (segment ops)
-            # measured ~20x slower than dense reduces on TPU
+            # tiny domains (Q1-style dict keys): one masked DENSE reduction per
+            # group id instead of int64 scatter-adds (segment ops): chosen for
+            # the engine's first accelerator, not yet measured on the H100
             op = {"sum": jnp.sum, "min": jnp.min, "max": jnp.max}[combine]
             ident = {"sum": jnp.zeros((), data.dtype),
                      "min": jnp.asarray(_dtype_max(data.dtype)),
@@ -147,11 +148,10 @@ def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
                       ranges=None):
     """Radix-sort rows by key words and segment equal-key runs.
 
-    The TPU-first replacement for probing (parity: velox kNormalizedKey —
+    The device-first replacement for probing (parity: velox kNormalizedKey —
     normalized binary-comparable keys, exec/prefixsort/PrefixSortEncoder.h —
-    but *sorted* instead of probed: a counting radix sort is a handful of
-    dense HBM passes, while scatter-probe rounds are many random
-    gather/scatter passes; measured 37.8s of Q3 SF1 spent in insert rounds).
+    but *sorted* instead of probed: one lax.sort over packed key lanes,
+    where scatter-probe rounds are many random gather/scatter passes).
 
     Returns (perm, gid, boundary, active_sorted, num_groups):
       perm[i]        = original row at sorted position i (active first)
@@ -164,19 +164,11 @@ def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
 
     words, bits = sort_words(keys, None, capacity, active, ranges=ranges)
     perm, skey = sort_perm_key(words, bits, capacity)
-    if skey is not None:
-        # sorted key lanes came back from lax.sort: boundaries without
-        # re-gathering any word
-        neq = jnp.zeros((capacity,), bool)
-        for w in skey:
-            prev = jnp.concatenate([w[:1], w[:-1]])
-            neq = neq | (w != prev)
-    else:
-        neq = jnp.zeros((capacity,), bool)
-        for w in words:
-            ws = w[perm]
-            prev = jnp.concatenate([ws[:1], ws[:-1]])
-            neq = neq | (ws != prev)
+    # boundaries from the sorted key lanes, without re-gathering any word
+    neq = jnp.zeros((capacity,), bool)
+    for w in skey:
+        prev = jnp.concatenate([w[:1], w[:-1]])
+        neq = neq | (w != prev)
     boundary = neq.at[0].set(True)
     gid = jnp.cumsum(boundary.astype(jnp.int32)) - 1
     active_sorted = jnp.asarray(active)[perm]
@@ -198,7 +190,6 @@ def sorted_group_info_vals(keys: Sequence[EvalValue],
     )
 
     words, bits = sort_words(keys, None, capacity, active, ranges=ranges)
-    n_key_words = len(words)
     key_bits = int(sum(bits))
     for v in vals:
         if v.validity is not None:
@@ -208,22 +199,9 @@ def sorted_group_info_vals(keys: Sequence[EvalValue],
         words.extend(vw)
         bits.extend([32] * len(vw))
     perm, skey = sort_perm_key(words, bits, capacity)
-
-    if skey is not None:
-        lw = lane_bit_widths(int(sum(bits)))
-        boundary = lane_prefix_neq(skey, lw, key_bits)
-        vboundary = lane_prefix_neq(skey, lw, int(sum(bits)))
-    else:
-        def _runs(ws):
-            neq = jnp.zeros((capacity,), bool)
-            for w in ws:
-                wp = w[perm]
-                prev = jnp.concatenate([wp[:1], wp[:-1]])
-                neq = neq | (wp != prev)
-            return neq.at[0].set(True)
-
-        boundary = _runs(words[:n_key_words])
-        vboundary = _runs(words)
+    lw = lane_bit_widths(int(sum(bits)))
+    boundary = lane_prefix_neq(skey, lw, key_bits)
+    vboundary = lane_prefix_neq(skey, lw, int(sum(bits)))
     gid = jnp.cumsum(boundary.astype(jnp.int32)) - 1
     active_sorted = jnp.asarray(active)[perm]
     num_groups = jnp.sum((boundary & active_sorted).astype(jnp.int32))
@@ -276,9 +254,9 @@ def row_group_ids(keys: Sequence[EvalValue], active, capacity: int,
     return ids, first & jnp.asarray(active), num_groups
 
 
-# operand budget for the payload-riding lax.sort: compile time grows
-# steeply with operand count (15-operand sort measured 586 s; <=8 stays
-# in the tens of seconds, one-time via the persistent compile cache)
+# operand budget for the payload-riding lax.sort: chosen for the engine's
+# first accelerator, whose compile time grew steeply with operand count;
+# not yet measured on the H100 (ROADMAP C3)
 _RIDE_MAX_OPERANDS = 8
 _RIDE_MAX_KEY_LANES = 4
 
@@ -297,20 +275,17 @@ def reduce_sort_mode(
     groups come out in key-sorted order and states land dense directly
     (no compaction scatter).
 
-    Fast path (round 3): addends RIDE the lax.sort as payload operands
-    and group keys are DECODED from the sorted lane bits — zero N-sized
-    gathers. The baseline formulation (sort a permutation, then gather
-    every addend and key column through it) measured ~195 ms/M rows on
-    this chip with gathers/scatters dominating; riding + lane decode
-    removes all of them (~15 ms/M gather per int64 column saved).
+    Fast path: addends RIDE the lax.sort as payload operands and group
+    keys are DECODED from the sorted lane bits — zero N-sized gathers,
+    where the plain formulation sorts a permutation and then gathers every
+    addend and key column through it.
 
-    Round 4: run ends are compacted to the dense group prefix by ONE
-    flag-keyed lax.sort carrying every lane (scan values + key lanes) as
-    payload, replacing the per-lane scatters — an XLA:TPU scatter costs
-    ~10 ms per million rows while an extra sort payload operand costs
-    ~1 ms per million, and the scan values at run ends ARE the group
-    reductions so no end-of-run scatter is needed either. Measured: the
-    Q18 SF1 merge (8M rows, 1 key lane, 1 f64 sum) 346 ms -> 103 ms.
+    Run ends are compacted to the dense group prefix by ONE flag-keyed lax.sort
+    carrying every lane (scan values + key lanes) as payload, replacing the
+    per-lane scatters; the scan values at run ends ARE the group reductions, so
+    no end-of-run scatter is needed either. Payload riding was chosen for the
+    engine's first accelerator, where scatters and gathers were slow; it is not
+    yet measured on the H100 against scatters (ROADMAP C3).
     """
     from velox_tpu.exec.sort import (
         decode_key_field, extract_lane_bits, lane_bit_widths,
@@ -379,17 +354,10 @@ def reduce_sort_mode(
         return out_keys, out_states, group_mask
 
     perm, skey = sort_perm_key(words, bits, capacity)
-    if skey is not None:
-        neq = jnp.zeros((capacity,), bool)
-        for w in skey:
-            prev = jnp.concatenate([w[:1], w[:-1]])
-            neq = neq | (w != prev)
-    else:
-        neq = jnp.zeros((capacity,), bool)
-        for w in words:
-            ws = w[perm]
-            prev = jnp.concatenate([ws[:1], ws[:-1]])
-            neq = neq | (ws != prev)
+    neq = jnp.zeros((capacity,), bool)
+    for w in skey:
+        prev = jnp.concatenate([w[:1], w[:-1]])
+        neq = neq | (w != prev)
     boundary = neq.at[0].set(True)
     gid = jnp.cumsum(boundary.astype(jnp.int32)) - 1
     active_sorted = jnp.asarray(active)[perm]
@@ -397,8 +365,9 @@ def reduce_sort_mode(
     out_states = []
     for data, combine in addends:
         # sorted-run reduction: dense cumulative ops + ONE end-of-run
-        # scatter — int64 scatter-adds (segment_sum) measured ~20x slower
-        # than this on TPU (ops/wide.py)
+        # scatter instead of int64 scatter-adds (segment_sum): chosen for
+        # the engine's first accelerator, not yet measured on the H100
+        # (ops/wide.py)
         out_states.append(segmented_reduce_sorted(
             data[perm], gid, boundary, active_sorted, capacity, combine))
     # group keys = key values at each group's first sorted row
@@ -416,8 +385,7 @@ def reduce_hash_mode(
     """Generic grouping via the scatter-probe hash table (hashtable.py).
 
     Parity: velox kNormalizedKey/kHash modes (exec/HashTable.h:122), redesigned
-    without sorting — XLA:TPU lax.sort compile cost is prohibitive (see
-    exec/sort.py). Returns (group_keys: List[EvalValue], group_states,
+    without sorting. Returns (group_keys: List[EvalValue], group_states,
     group_mask). Output arrays have length `capacity`; groups are a dense
     prefix in arbitrary (hash) order.
     """

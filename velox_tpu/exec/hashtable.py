@@ -3,7 +3,7 @@
 Role parity: ``velox/exec/HashTable.h:108-443`` (the F14-style SIMD table
 with kArray/kNormalizedKey/kHash modes) and ``VectorHasher``.
 
-TPU-first redesign: instead of 128-byte tagged buckets probed 4-way with
+Device-first redesign: instead of 128-byte tagged buckets probed 4-way with
 SIMD, the table is a struct-of-arrays in HBM — one ``occupied`` flag array
 plus one *native-dtype* column per key — probed with **batched linear-probe
 rounds**: every pending row gathers its slot, compares keys vectorized, and
@@ -11,8 +11,7 @@ unresolved rows claim empty slots with a scatter-min "ticket" (winner writes
 its keys, same-key losers resolve on the re-check). Each round is a handful
 of gathers/scatters, and ``lax.while_loop`` runs rounds until all rows
 resolve — the data-parallel analogue of the reference's per-row probe loop
-(HashTable.cpp:383 fullProbe). Every op here compiles in ~1s on TPU (unlike
-lax.sort; see exec/sort.py).
+(HashTable.cpp:383 fullProbe).
 
 Keys stay in native dtype (int64/int32/f64/dict-id), so no f64 bitcasts are
 needed: equality is native, and hashing goes through order/equality-safe

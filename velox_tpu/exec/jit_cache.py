@@ -1,7 +1,7 @@
 """Cross-task cache of jitted operator programs.
 
 Re-tracing + lowering a large traced program (merge-rank join probe,
-11M-row sort) measured SECONDS per jax.jit call even with the persistent
+large sorts) costs seconds per jax.jit call even with the persistent
 compile cache hitting — and operators used to create fresh jits per Task.
 Keying the jitted callables by plan node (plus any trace-time state)
 removes that per-query cost, the same way exec/fuse.py caches fused

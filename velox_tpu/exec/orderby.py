@@ -3,11 +3,10 @@
 Role parity: ``velox/exec/OrderBy.h:35`` (SortBuffer + PrefixSort) and
 ``velox/exec/TopN.h:23``.
 
-TPU-first: PrefixSort's normalized binary keys (exec/prefixsort/
-PrefixSortEncoder.h:31) become order-preserving unsigned words fed to a
-counting radix sort (exec/sort.py) — ``lax.sort``'s XLA:TPU compile cost is
-prohibitive at framework scale. TopN keeps a device-resident top-k buffer
-merged with each incoming batch (one radix pass per batch), the analogue of
+PrefixSort's normalized binary keys (exec/prefixsort/PrefixSortEncoder.h:31)
+become order-preserving unsigned words packed into u64 lanes and sorted by
+one ``lax.sort`` (exec/sort.py). TopN keeps a device-resident top-k buffer
+merged with each incoming batch (one sort per batch), the analogue of
 the reference's bounded row-container heap.
 """
 
@@ -30,7 +29,7 @@ def sort_batch(batch: DeviceBatch, keys, orders,
                ranges=None) -> DeviceBatch:
     """Stable sort of a batch's rows by keys/orders; inactive rows last.
     ``ranges`` (per key, optional) narrows the normalized sort words via
-    static column stats — fewer radix passes (exec/sort.py)."""
+    static column stats — fewer sort lanes (exec/sort.py)."""
     from velox_tpu.exec.sort import radix_sort_perm
     cap = batch.capacity
     key_vals = [value_from_column(batch.columns[k.name]) for k in keys]
@@ -110,10 +109,11 @@ class TopNOperator(Operator):
         rngs = _key_ranges(node, self._keys)
 
         def _merge(buf: Optional[DeviceBatch], batch: DeviceBatch):
-            """Key-ONLY sort: sort (packed key, iota), slice the top
-            buf_cap indices, and gather full rows just for those — the
-            payload never rides the sort (round 3; full-payload sorts
-            cost ~16 ms/M per column in gathers)."""
+            """Key-ONLY sort: sort (packed key, iota), slice the top buf_cap
+            indices, and gather full rows just for those — the payload never
+            rides the sort (chosen for the engine's first accelerator, where
+            full-payload sorts were gather-bound; not yet measured on the
+            H100)."""
             from velox_tpu.exec.sort import radix_sort_perm
             merged = concat_batches([buf, batch]) if buf is not None \
                 else batch

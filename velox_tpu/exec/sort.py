@@ -1,18 +1,21 @@
-"""Radix sort: LSD counting sort over order-preserving unsigned words.
+"""Sort permutations over order-preserving unsigned key words.
 
 Role parity: ``velox/exec/PrefixSort.h:92`` + ``prefixsort/PrefixSortEncoder.h``
-(normalized binary-comparable keys + sort) — but as a counting radix sort
-built from cumsum/gather/scatter, because XLA:TPU's ``lax.sort`` compile time
-explodes with operand count/width (measured: 2xi32 19s, 2xi64 53s, 15-operand
-586s, vs ~1s for scatter/segment ops; see .claude/skills/verify gotchas).
+(normalized binary-comparable keys + sort). Keys become order-preserving
+unsigned words, packed msb-first into u64 lanes, and one stable
+``lax.sort`` over the lanes plus an i32 iota yields the permutation.
 
-Key encoding notes (TPU x64 rewriting forbids every f64 bitcast and frexp):
+Key encoding notes:
 
 * signed ints  -> biased unsigned words (hi/lo for 64-bit)
 * f32          -> monotone u32 via i32 bitcast + sign fold
 * f64          -> THREE f32 words (hi = f32(x), lo = f32(x - hi),
                   lo2 = f32(x - hi - lo)): within equal hi (and lo) the
-                  residual orders exactly, and 3x24 bits >= 53 mantissa bits
+                  residual orders exactly, and 3x24 bits >= 53 mantissa bits.
+                  This form was chosen for the engine's first accelerator,
+                  whose x64 mode forbids f64 bitcasts; it is not yet
+                  measured on the H100 against one f64 -> u64 bitcast word
+                  (ROADMAP C3).
 * strings      -> sorted-dictionary ids (i32)
 * descending   -> bitwise-not every value word (reverses lexicographic order)
 * nulls        -> a leading 1-bit word per nullable key (independent of desc)
@@ -120,9 +123,10 @@ def _narrow_bits(v: EvalValue, rng) -> int:
 
 class KeyFieldLayout:
     """Bit layout of one sort key inside the packed msb-first key stream —
-    enough to DECODE the key value back out of sorted lane words, so
-    group-by / order-by never gather key columns through the permutation
-    (XLA:TPU gathers ~7-15 ms/M elements; lane bit ops are ~free).
+    enough to DECODE the key value back out of sorted lane words, so group-by /
+    order-by never gather key columns through the permutation (chosen for the
+    engine's first accelerator, where gathers were slow; not yet measured on
+    the H100).
 
     kind: 'const' (contributes no bits; value == base), 'narrow'
     (stats-narrowed: value = base + bits), 'words' (full-width
@@ -178,9 +182,9 @@ def sort_words_layout(
     `orders` is a list of plan.SortOrder or None entries (None = grouping /
     equality only). The leading word puts inactive rows last. `ranges`
     optionally gives (min, max) storage bounds per key: narrowed keys are
-    BIT-PACKED msb-first into shared 32-bit words, so total radix passes
+    BIT-PACKED msb-first into shared 32-bit words, so the u64 sort lanes
     track the information content of the key tuple, not 32 bits per word
-    (fewer passes AND fewer compiled radix kernels).
+    (fewer sort operands).
     """
     # fields: (uint32 array with the value in the LOW nb bits, nb)
     fields: List = [((~active).astype(jnp.uint32), 1)]
@@ -278,7 +282,7 @@ def extract_lane_bits(lanes: List, lane_bits: List[int], off: int,
                       nb: int):
     """Extract the ``nb``-bit field at msb-first stream offset ``off``
     from packed u64 lanes (inverse of pack_words_u64). nb <= 32; returns
-    uint32. All static shifts — dense VPU ops, no gathers."""
+    uint32. All static shifts — dense elementwise ops, no gathers."""
     assert nb <= 32
     lane_start = 0
     for lane, lb in zip(lanes, lane_bits):
@@ -392,36 +396,25 @@ def pack_words_u64(words: List, bits: List[int]):
     return lanes
 
 
-# lax.sort operand-count ceiling: XLA:TPU compile time explodes with
-# many operands (15-operand sort measured 586 s); <=4 u64 key lanes plus
-# the payload keeps compiles in the tens of seconds, one-time per shape
-# via the persistent compile cache.
-_LAX_SORT_MAX_KEY_LANES = 4
-
-
 def sort_perm_key(words: List, bits: List[int], capacity: int):
-    """(perm, sorted_key_or_None): stable sort permutation, plus the
-    packed sorted key lanes when the lax.sort path ran (so callers can
-    derive run boundaries without re-gathering key words).
+    """(perm, sorted_lanes): stable sort permutation, plus the packed
+    sorted key lanes (so callers can derive run boundaries without
+    re-gathering key words); no lanes when the key has no bits.
 
-    TPU-first (round 3): ``lax.sort`` over <=4 packed u64 key lanes + an
-    i32 iota payload measured ~9.5 ms per million rows on this chip —
-    ~25x faster than the hand-built counting radix sort (which pays
-    ~28 ms/M PER 8-bit pass in scatters alone). Compile cost (tens of
-    seconds for multi-operand sorts) is one-time via the persistent
-    compile cache. Wider keys fall back to the radix path.
+    One ``lax.sort`` over every packed u64 key lane plus an i32 iota
+    payload, whatever the key width: on the H100 it beat a counting radix
+    sort on a 6-lane key (PERF.md).
     """
     total = int(sum(bits))
+    iota = jnp.arange(capacity, dtype=jnp.int32)
     if total == 0:
-        iota = jnp.arange(capacity, dtype=jnp.int32)
-        return iota, None
+        return iota, []
     lanes = pack_words_u64(words, bits)
-    if len(lanes) <= _LAX_SORT_MAX_KEY_LANES:
-        iota = jnp.arange(capacity, dtype=jnp.int32)
-        out = jax.lax.sort(tuple(lanes) + (iota,),
-                           num_keys=len(lanes), is_stable=True)
-        return out[-1], list(out[:-1])
-    return _radix_fallback_perm(words, bits, capacity), None
+    from velox_tpu.common import metrics as M
+    M.record_counter(M.K_SORT_PROGRAMS)
+    out = jax.lax.sort(tuple(lanes) + (iota,),
+                       num_keys=len(lanes), is_stable=True)
+    return out[-1], list(out[:-1])
 
 
 def lane_prefix_neq(lanes: List, lane_bits: List[int], prefix_bits: int):
@@ -457,128 +450,10 @@ def lane_bit_widths(total_bits: int) -> List[int]:
     return out
 
 
-def _scatter_sort_perm(words: List, bits: List[int], capacity: int):
-    """Stable radix sort with ONE scatter per pass and ZERO N-gathers.
-
-    All key bits plus the row id pack into a single uint64 per row
-    (row id in the high bits, key bits low, least-significant-first
-    consumption): each pass extracts the low 8 digits WITHOUT gathering
-    (the state array is already in pass order), computes destinations via
-    the no-gather position kernel, and scatters ``state >> 8`` — consumed
-    bits fall away and after the last pass the state IS the permutation.
-    Motivation: XLA:TPU gathers cost ~7 ms/M elements (measured), so the
-    classic gather-digits-by-perm formulation was gather-bound.
-    """
-    from velox_tpu.ops import pallas_kernels as PK
-
-    total = int(sum(bits))
-    packed = jnp.zeros((capacity,), jnp.uint64)
-    for w, b in zip(words, bits):  # words[0] most significant
-        packed = (packed << np.uint64(b)) | w.astype(jnp.uint64)
-    state = (jnp.arange(capacity, dtype=jnp.uint64)
-             << np.uint64(total)) | packed
-    use_pk = PK.should_use(capacity)
-    # split u32 state (remaining key bits, row id): u64 shifts/scatters
-    # are emulated on TPU and measured ~3x slower than two u32 arrays
-    key_lo = (packed & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
-    key_hi = (packed >> np.uint64(32)).astype(jnp.uint32)
-    perm = jnp.arange(capacity, dtype=jnp.int32)
-    rem = total
-    for shift in range(0, total, 8):
-        width = min(8, rem)
-        digits = (key_lo & np.uint32((1 << width) - 1)).astype(jnp.int32)
-        if use_pk:
-            try:
-                pos = PK.radix_pass_positions_nogather(digits, capacity)
-            except Exception:
-                PK.disable()
-                use_pk = False
-                pos = _xla_pass_positions(digits, capacity)
-        else:
-            pos = _xla_pass_positions(digits, capacity)
-        rem -= width
-        # shift consumed bits out (borrowing from the high word) and
-        # scatter the surviving state — one scatter per live array
-        new_lo = (key_lo >> np.uint32(width)) \
-            | (key_hi << np.uint32(32 - width))
-        perm = jnp.zeros((capacity,), jnp.int32).at[pos].set(perm)
-        if rem > 0:
-            key_lo = jnp.zeros((capacity,), jnp.uint32).at[pos].set(new_lo)
-            if rem > 32:
-                key_hi = jnp.zeros((capacity,), jnp.uint32).at[pos].set(
-                    key_hi >> np.uint32(width))
-            else:
-                key_hi = jnp.zeros((capacity,), jnp.uint32)
-    return perm
-
-
-def _xla_pass_positions(d, capacity: int):
-    """One 8-bit counting pass, pure XLA (CPU mesh / fallback)."""
-    iota = jnp.arange(capacity, dtype=jnp.int32)
-    buckets = jnp.arange(256, dtype=jnp.int32)
-    oh = (d[None, :] == buckets[:, None])
-    ranks = jnp.cumsum(oh.astype(jnp.int32), axis=1)
-    counts = ranks[:, -1]
-    base = jnp.cumsum(counts) - counts
-    return base[d] + ranks[d, iota] - 1
-
-
-def radix_sort_perm(words: List, bits: List[int], capacity: int,
-                    bits_per_pass: int = 8):
+def radix_sort_perm(words: List, bits: List[int], capacity: int):
     """Stable permutation sorting rows by unsigned words (lexicographic,
-    words[0] most significant). Round 3: delegates to the lax.sort fast
-    path (sort_perm_key); the counting-radix machinery below remains as
-    the fallback for very wide keys."""
+    words[0] most significant)."""
     perm, _ = sort_perm_key(words, bits, capacity)
-    return perm
-
-
-def _radix_fallback_perm(words: List, bits: List[int], capacity: int,
-                         bits_per_pass: int = 8):
-    """Counting radix sort (pre-round-3 default; now the wide-key
-    fallback). Scatter-only when the key fits a u64 alongside the row
-    id; the general path keeps the classic gather-digits-by-perm loop."""
-    total = int(sum(bits))
-    pbits = max(1, capacity - 1).bit_length()
-    if total + pbits <= 64 and total > 0:
-        return _scatter_sort_perm(words, bits, capacity)
-    n = capacity
-    iota = jnp.arange(n, dtype=jnp.int32)
-    perm = iota
-    for word, wb in zip(reversed(words), reversed(bits)):
-        w = word.astype(jnp.uint32)
-        for shift in range(0, wb, bits_per_pass):
-            width = min(bits_per_pass, wb - shift)
-            r = 1 << width
-            d = (w[perm] >> np.uint32(shift)) & np.uint32(r - 1)
-            pos = None
-            if width == 8:
-                # Pallas kernel keeps the one-hot in VMEM tiles instead of
-                # a (256, N) HBM intermediate (ops/pallas_kernels.py)
-                from velox_tpu.ops import pallas_kernels as PK
-                if PK.should_use(n):
-                    try:
-                        pos = PK.radix_pass_positions(
-                            d.astype(jnp.int32), n)
-                    except Exception:
-                        PK.disable()
-                        pos = None
-            if pos is None:
-                if width == 1:
-                    d_i = d.astype(jnp.int32)
-                    ones_before = jnp.cumsum(d_i) - d_i
-                    zeros_before = iota - ones_before
-                    num_zero = n - jnp.sum(d_i)
-                    pos = jnp.where(d_i == 0, zeros_before,
-                                    num_zero + ones_before)
-                else:
-                    buckets = jnp.arange(r, dtype=jnp.uint32)
-                    oh = (d[None, :] == buckets[:, None])
-                    ranks = jnp.cumsum(oh.astype(jnp.int32), axis=1)
-                    counts = ranks[:, -1]
-                    base = jnp.cumsum(counts) - counts
-                    pos = base[d] + ranks[d, iota] - 1
-            perm = jnp.zeros((n,), jnp.int32).at[pos].set(perm)
     return perm
 
 
@@ -611,11 +486,13 @@ def packable_words(dtypes: Sequence[T.DataType]) -> bool:
 
 def sortable_words(dtypes: Sequence[T.DataType]) -> bool:
     """True if the key tuple's order-preserving words (plus the active /
-    null bits) stay within the lax.sort lane budget — the precondition
-    for the WIDE-key sorted-join path (exec/join.py build_sorted_table
-    wide mode): such builds probe via the merge-rank sort, which never
-    packs keys into one u64. Beyond this, the scatter-probe hash table
-    remains the fallback."""
+    null bits) fit four u64 lanes — the precondition for the WIDE-key
+    sorted-join path (exec/join.py build_sorted_table wide mode): such
+    builds probe via the merge-rank sort, which never packs keys into one
+    u64. Beyond this, the scatter-probe hash table remains the fallback.
+    The limit dates from a sort-lane cap of the engine's first
+    accelerator; which join mode wins for
+    wider keys on the H100 is not yet measured (ROADMAP C4)."""
     return sum(num_value_words(dt) for dt in dtypes) <= 7
 
 

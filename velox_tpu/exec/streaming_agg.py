@@ -4,7 +4,7 @@ Role parity: ``velox/exec/StreamingAggregation.h:29`` — when rows arrive
 sorted by the grouping keys, groups are contiguous runs; aggregate states
 accumulate run-by-run and a group is final the moment the key changes.
 
-TPU-first redesign: per input batch one jitted step
+Device-first redesign: per input batch one jitted step
   1. stably compacts active rows to a dense prefix (no sort — the input
      order IS the group order),
   2. finds run boundaries by adjacent key comparison and segment-reduces

@@ -6,8 +6,8 @@ variant), ``velox/exec/WindowFunction.h:34``, frame semantics from
 UNBOUNDED_PRECEDING/PRECEDING/CURRENT_ROW/FOLLOWING/UNBOUNDED_FOLLOWING),
 and ``velox/exec/AggregateWindow.h`` (any aggregate as a window function).
 
-TPU-first redesign: the reference walks partitions row-by-row; here the
-whole buffered input is radix-sorted once by (partition keys, order keys)
+Device-first redesign: the reference walks partitions row-by-row; here the
+whole buffered input is sorted once by (partition keys, order keys)
 and every function is computed **closed-form over the sorted batch**:
 
 * partition boundaries -> flag diffs + cumsum (segment ids);
@@ -565,8 +565,8 @@ class RowNumberOperator(Operator):
         table, slots, _ = H.insert(table, keys, batch.mask, cap)
         S = table.size
         seg = jnp.where(batch.mask, slots, jnp.int32(S))
-        # rank of each row within its group in this batch: stable radix
-        # partition by slot, then position within the run of equal slots
+        # rank of each row within its group in this batch: stable sort
+        # by slot, then position within the run of equal slots
         from velox_tpu.exec.sort import radix_sort_perm
         order = radix_sort_perm([seg.astype(jnp.uint32)],
                                 [max(1, S.bit_length())], cap)
@@ -576,8 +576,9 @@ class RowNumberOperator(Operator):
         gstart = jnp.where(newg, jnp.arange(cap), 0)
         gstart = jax.lax.cummax(gstart)
         rank_sorted = jnp.arange(cap) - gstart
-        # scatter in int32 (rank < cap): int64 scatters are ~20x slower
-        # on TPU (emulated pairs; see NEXT_STEPS perf facts)
+        # scatter in int32 (rank < cap), widened after: chosen for the engine's
+        # first accelerator, where int64 scatters were slow; not yet measured
+        # on the H100
         rank = jnp.zeros((cap,), jnp.int32).at[order].set(
             rank_sorted.astype(jnp.int32)).astype(jnp.int64)
         base = counts[jnp.clip(slots, 0, S - 1)]

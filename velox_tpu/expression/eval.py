@@ -4,7 +4,7 @@ Role parity: ``velox/expression/Expr.cpp`` + ``ExprCompiler.cpp`` — the
 ExprSet/Expr::eval machinery with its encoding peeling, CSE caching, lazy
 loading and flat-no-nulls fast paths (Expr.cpp:774-1154).
 
-TPU-first design: an ExprSet here is *traced once per (plan, schema,
+Design: an ExprSet here is *traced once per (plan, schema,
 capacity)* and compiled by XLA, so the reference's runtime adaptivity
 collapses into compile-time structure:
 

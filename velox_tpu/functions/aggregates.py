@@ -4,7 +4,7 @@ Role parity: ``velox/exec/Aggregate.h:43`` (the accumulator SPI:
 addRawInput/addIntermediateResults/extractValues) and the Presto aggregate
 library (velox/functions/prestosql/aggregates).
 
-TPU-first redesign: accumulators are **columnar state vectors**, not rows in
+Device-first redesign: accumulators are **columnar state vectors**, not rows in
 a RowContainer. An aggregate is described by a list of *states*, each with a
 segment-combine op (sum/min/max); the execution layer computes per-row
 addends once per batch and reduces them with jax segment ops into dense
@@ -556,7 +556,7 @@ class ApproxDistinctAgg(AggregateFunction):
     """approx_distinct via HyperLogLog register vectors.
 
     Parity: functions/prestosql/aggregates (HLL over common/hyperloglog).
-    TPU-first: the per-group state is a WIDTH-register int32 vector state
+    The per-group state is a WIDTH-register int32 vector state
     column combined with segment_max; per-row addends are the one-hot
     (row, register) rho contributions, fused by XLA into the segment
     reduce. Default 512 registers (~4.6% standard error); a second
@@ -612,7 +612,7 @@ class ApproxDistinctAgg(AggregateFunction):
 # Collect-style aggregates: results are per-group COLLECTIONS (or
 # order-statistics) rather than segment-combinable scalars. They have no
 # StateSpec states; the aggregation operator runs them through the
-# sort-based collect pathway (exec/aggregation.py): rows radix-sorted by
+# sort-based collect pathway (exec/aggregation.py): rows sorted by
 # (group keys [+ value]) and elements emitted by prefix compaction of the
 # sorted runs. Parity: prestosql ArrayAggAggregate.cpp / SetAggAggregate /
 # MapAggAggregate / HistogramAggregate / ApproxPercentileAggregate — but

@@ -129,11 +129,11 @@ register("contains", _contains_resolver, _contains_eval)
 # (transform/filter/any_match/..., array_sort/array_distinct) and
 # MapFunctions (map_keys/map_values/map_filter/transform_values).
 #
-# TPU-first: lambdas evaluate in ELEMENT SPACE — the flattened children
+# Lambdas evaluate in ELEMENT SPACE — the flattened children
 # arrays are one dense vector; the lambda parameter binds the child column
 # directly and captured outer columns lift via one row-index gather. No
 # per-row loops, no per-row function calls (the reference's
-# SimpleFunctionAdapter per-row lambda dispatch has no TPU analogue).
+# SimpleFunctionAdapter per-row lambda dispatch has no analogue here).
 # ---------------------------------------------------------------------------
 
 from velox_tpu.core import expressions as _ex
@@ -1159,7 +1159,7 @@ register("map_concat", sig("map(K, V), map(K, V) -> map(K, V)"),
 def _map_zip_with(expr, ctx, cache):
     """map_zip_with(m1, m2, (k, v1, v2) -> r): merge by KEY UNION; keys
     present in only one map see NULL for the other value. Parity:
-    prestosql MapZipWithFunction. TPU-first: concatenate both entry
+    prestosql MapZipWithFunction. Concatenate both entry
     streams, ONE sort by (row, key, source) over the combined element
     space, and read each union key's v1/v2 off the <=2-entry runs
     (map keys are unique per map by construction)."""
@@ -1201,21 +1201,8 @@ def _map_zip_with(expr, ctx, cache):
                              ranges=((0, max(1, cap - 1)), None, None))
     perm, skey = sort_perm_key(words, bits, M)
     total = int(sum(bits))
-    if skey is not None:
-        boundary = lane_prefix_neq(skey, lane_bit_widths(total),
-                                   total - 1)  # (row, key) runs: drop src
-    else:
-        neq = jnp.zeros((M,), bool)
-        consumed = 0
-        for w, nb in zip(words, bits):
-            take = min(nb, (total - 1) - consumed)
-            if take <= 0:
-                break
-            ws = (w >> np.uint32(nb - take))[perm]
-            prev = jnp.concatenate([ws[:1], ws[:-1]])
-            neq = neq | (ws != prev)
-            consumed += take
-        boundary = neq.at[0].set(True)
+    boundary = lane_prefix_neq(skey, lane_bit_widths(total),
+                               total - 1)  # (row, key) runs: drop src
     ink_s = ink[perm]
     rows_s = jnp.clip(rows[perm], 0, cap - 1)
     src_s = src[perm]

@@ -3,7 +3,7 @@
 Role parity: ``velox/functions/prestosql/DateTimeFunctions.h`` (date_add,
 date_diff, date_trunc, week/hour/minute/second, from/to_unixtime) over our
 device layouts: DATE = int32 days since epoch, TIMESTAMP = int64 micros.
-All computation is branch-free integer arithmetic on the VPU (the civil-date
+All computation is branch-free integer arithmetic on device (the civil-date
 conversions live in scalar.py: _civil_from_days / _days_from_civil).
 """
 
@@ -266,7 +266,7 @@ register("from_unixtime",
 # IANA time zones. Parity: velox/type/tz/TimeZoneMap.h + prestosql datetime
 # functions with zone arguments.
 #
-# TPU-first: a zone's TZif transition table (RFC 8536, read from the system
+# A zone's TZif transition table (RFC 8536, read from the system
 # tzdata) becomes two small device arrays (transition instants + UTC offsets);
 # per row the offset is offsets[searchsorted(transitions, ts)] — one binary
 # search over a few hundred entries, fully traced. Zone names must be

@@ -2,9 +2,9 @@
 
 Role parity: ``velox/functions/FunctionRegistry.h`` + the
 SimpleFunctionAdapter machinery (velox/expression/SimpleFunctionAdapter.h:68).
-TPU-first: there is no scalar-vs-vector function split — every function is a
+There is no scalar-vs-vector function split — every function is a
 batch-level traced JAX computation, so the reference's template adapter that
-vectorizes scalar lambdas has no analogue; the VPU *is* the vectorizer.
+vectorizes scalar lambdas has no analogue; XLA *is* the vectorizer.
 
 A function is registered as (name, type_resolver, eval_fn):
   type_resolver(arg_types) -> DataType or None (None = signature mismatch)

@@ -826,7 +826,7 @@ register("replace", _str_resolver(T.VARCHAR), _replace_eval)
 
 def _civil_from_days(days):
     """Vectorized days-since-epoch -> (year, month, day); Howard Hinnant's
-    algorithm, branch-free — runs on the VPU."""
+    algorithm, branch-free — runs on device."""
     z = days.astype(np.int64) + 719468
     era = jnp.where(z >= 0, z, z - 146096) // 146097
     doe = z - era * 146097
@@ -905,7 +905,7 @@ _REGISTRY["doy"] = _REGISTRY["day_of_year"]
 # ---------------------------------------------------------------------------
 
 def hash64(data):
-    """Murmur3-style 64-bit finalizer over int64 lanes (VPU-friendly)."""
+    """Murmur3-style 64-bit finalizer over int64 lanes (elementwise)."""
     x = data.astype(jnp.uint64)
     x = x ^ (x >> 33)
     x = x * jnp.uint64(0xFF51AFD7ED558CCD)

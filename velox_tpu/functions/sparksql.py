@@ -125,7 +125,7 @@ register("add_months",
 # seed chains across arguments, NULL leaves the seed unchanged) — required
 # for Gluten-compatible shuffles.
 #
-# TPU-first: the whole mixer runs on uint32 lanes (wrapping multiplies) —
+# The whole mixer runs on uint32 lanes (wrapping multiplies) —
 # one fused elementwise program per hash() call. Strings hash in
 # dictionary-block space: each dictionary entry's utf8 bytes expand ONCE on
 # the host into Spark's block sequence (aligned 4-byte LE words, then each
@@ -176,8 +176,9 @@ def _mm_hash_i64(i64, seed):
 
 
 def _double_bits(x):
-    """IEEE-754 double bits WITHOUT bitcast (unsupported f64<->i64 on the
-    TPU x64 path): sign/exponent/mantissa reconstructed arithmetically.
+    """IEEE-754 double bits WITHOUT bitcast (the engine's first accelerator
+    had no f64<->i64 bitcast): sign/exponent/mantissa reconstructed
+    arithmetically.
     Denormals (|x| < 2^-1022) are explicitly flushed to zero — a
     documented deviation from Spark, which hashes their true bit
     patterns; normal values remain bit-exact."""
@@ -281,7 +282,7 @@ register("hash", lambda ts: T.INTEGER if ts else None, _spark_hash_eval)
 # ---------------------------------------------------------------------------
 # Spark xxhash64 parity. Parity: velox/functions/sparksql/Hash.cpp
 # (XxHash64: seed 42, chains across arguments, NULL passes the seed).
-# uint64 lane arithmetic (emulated 32-bit pairs on TPU, exact).
+# uint64 lane arithmetic (exact).
 # ---------------------------------------------------------------------------
 
 _XP1 = np.uint64(0x9E3779B185EBCA87)
@@ -861,7 +862,7 @@ def _bit_count_eval(ctx, out_dtype, args):
     (v,) = args
     x = v.full_data(ctx.capacity).astype(jnp.int64)
     u = jax.lax.bitcast_convert_type(x, jnp.uint64)
-    # SWAR popcount (Hacker's Delight 5-2) — branch-free VPU arithmetic
+    # SWAR popcount (Hacker's Delight 5-2) — branch-free arithmetic
     u = u - ((u >> jnp.uint64(1)) & jnp.uint64(0x5555555555555555))
     u = (u & jnp.uint64(0x3333333333333333)) \
         + ((u >> jnp.uint64(2)) & jnp.uint64(0x3333333333333333))

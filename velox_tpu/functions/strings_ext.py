@@ -4,12 +4,12 @@ Role parity: ``velox/functions/lib/Re2Functions.{h,cpp}`` (regexp_like/
 extract/replace), ``functions/prestosql/JsonFunctions`` (json_extract_*)
 and ``functions/prestosql/URLFunctions.h``.
 
-TPU-first: string columns are dictionary ids, so every function here is a
+String columns are dictionary ids, so every function here is a
 **dictionary-space transform** — the (Python) string computation runs once
 per DISTINCT value at trace time and becomes either a new dictionary
 (string results) or a per-id lookup table gathered on device (scalar
 results). The per-row device work is one int32 gather regardless of
-string lengths — the reference's per-row RE2 evaluation has no TPU
+string lengths — the reference's per-row RE2 evaluation has no device
 analogue, and this is faster whenever distinct values << rows (the
 dictionary-memoization trick the reference applies opportunistically,
 expression/Expr.cpp:1091, made structural).

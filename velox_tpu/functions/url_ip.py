@@ -5,7 +5,7 @@ Role parity: ``velox/functions/prestosql/IPAddressFunctions.h``
 predicate). The URL family (URLFunctions.cpp parity) lives in
 functions/strings_ext.py.
 
-TPU-first placement: dictionary-space transforms — IP columns parse per
+Placement: dictionary-space transforms — IP columns parse per
 DISTINCT value at trace time (functions/strings_ext.py
 _dict_map_nullable), so the device only carries remapped ids. The
 reference's IPADDRESS/IPPREFIX physical types map to canonical-form

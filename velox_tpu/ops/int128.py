@@ -1,15 +1,13 @@
 """int128 limb arithmetic for long decimals (DECIMAL(19..38)).
 
 Role parity: ``velox/type/HugeInt.h`` + ``type/DecimalUtil.h`` — the
-reference backs long decimals with __int128. TPU-native representation:
+reference backs long decimals with __int128. Representation here:
 two int64 limbs per value, `lo` carrying the low 64 bits (unsigned bit
 pattern stored in int64) and `hi` the signed high 64 bits. Columns store
 lo as the DeviceColumn data and hi as a child column
 (vector/device.py); all math here is branch-free jnp on the limbs.
 
-x64 mode is required (velox_tpu always enables it); uint64 ops lower to
-the emulated 32-bit-pair path on TPU exactly like the sort key packing
-(exec/sort.py), which is measured fast.
+x64 mode is required (velox_tpu always enables it).
 """
 
 from __future__ import annotations

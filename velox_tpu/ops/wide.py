@@ -1,12 +1,8 @@
-"""Wide-dtype scatter/reduction workarounds for XLA:TPU lowering costs.
+"""Wide-dtype scatter/reduction workarounds.
 
-Measured on this chip (4M elements):
-  int32 scatter-set   ~6 ms/M      int64 scatter-set   ~114 ms/M
-  int32 scatter-add  ~10 ms/M      int64 scatter-add   ~112 ms/M
-  int64 gather        ~15 ms/M     int64 dense cumsum  ~0.3 ms/M
-
-64-bit scatters are ~20x slower than 32-bit, while dense 64-bit ops are
-nearly free — so:
+They were chosen for the engine's first accelerator, where 64-bit scatters
+were far slower than 32-bit ones while dense 64-bit ops were nearly free;
+none is yet measured on the H100 against the plain scatter (ROADMAP C3):
 
 * ``scatter_unique_set`` splits an int64/uint64 scatter into hi/lo int32
   scatters (CORRECT ONLY for unique indices: duplicate indices could tear
@@ -30,8 +26,7 @@ def _is_wide_int(dtype) -> bool:
 
 def scatter_unique_set(out_len: int, idx, values, mode: str = "drop"):
     """zeros(out_len).at[idx].set(values) — fast path for 64-bit values
-    via 32-bit component scatters (64-bit scatters are ~20x slower on
-    this chip). REQUIRES unique (or dropped) indices: duplicates may
+    via 32-bit component scatters (see the module note). REQUIRES unique (or dropped) indices: duplicates may
     tear the components."""
     dt = values.dtype
     if values.ndim == 1 and dt == jnp.float64:
@@ -93,15 +88,13 @@ def segmented_reduce_sorted(data, gid, boundary, active_sorted,
 
     sum: dense cumsum + end-of-run scatter + adjacent difference.
     min/max: segmented Hillis-Steele doubling scan (a shift + select per
-    power of two; jax.lax.associative_scan with a pair combiner measured
-    MINUTES of XLA:TPU compile at 3M rows vs seconds for this form) +
-    end-of-run scatter.
+    power of two, in place of jax.lax.associative_scan with a pair
+    combiner, whose compiles were slow on the engine's first
+    accelerator) + end-of-run scatter.
 
     NOTE (hot path): reduce_sort_mode's ride path no longer calls this —
     it computes per-row values with segmented_scan_values and compacts
-    run ends with ONE flag-keyed lax.sort instead of per-lane scatters
-    (an XLA:TPU scatter costs ~10 ms per million rows; an extra lax.sort
-    payload operand ~1 ms per million).
+    run ends with ONE flag-keyed lax.sort instead of per-lane scatters.
     """
     is_end = jnp.concatenate([boundary[1:], jnp.ones((1,), bool)])
     idx_end = jnp.where(is_end & active_sorted, gid, jnp.int32(capacity))
@@ -170,8 +163,7 @@ def segmented_scan_values(data, run_off, capacity: int, combine: str):
     primitive behind reduce_sort_mode — run ends are compacted afterwards
     by one flag-keyed lax.sort shared across all lanes.
 
-    The 23 shift-select passes fuse well (measured 45 ms for 8M f64 —
-    cheaper than one XLA:TPU scatter at that size). Float sums use the
+    The 23 shift-select passes fuse into few kernels. Float sums use the
     scan rather than a cumsum difference because a global running total
     mixes groups (cs = 2e300 + 5 == 2e300 -> small groups absorb to 0).
     Integer sums use the exact global-cumsum shortcut: the caller takes

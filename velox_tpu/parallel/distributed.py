@@ -29,6 +29,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from velox_tpu import types as T
+from velox_tpu import use_compile_cache
 from velox_tpu.core import expressions as ex
 from velox_tpu.core import plan as Pn
 from velox_tpu.exec.aggregation import AggregationOperator
@@ -144,6 +145,7 @@ class DistributedTask:
     def __init__(self, plan: Pn.PlanNode, mesh: Optional[Mesh] = None,
                  ctx=None):
         from velox_tpu.exec.task import QueryCtx
+        use_compile_cache()
         self.plan = plan
         self.mesh = mesh or make_mesh()
         self.n = self.mesh.devices.size
@@ -866,7 +868,7 @@ class DistributedTask:
         """Distributed ORDER BY: final sort on one device after a gather.
         Parity: Presto/velox final ORDER BY stages are single-driver merges
         of partial-sorted streams (exec/Merge.h) — here the gather is the
-        exchange and one radix sort replaces the k-way merge."""
+        exchange and one sort replaces the k-way merge."""
         from velox_tpu.exec.orderby import _key_ranges
         waves = list(self._run_node(node.source))
         if not waves:

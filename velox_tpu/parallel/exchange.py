@@ -2,7 +2,7 @@
 
 Role parity: ``velox/exec/PartitionedOutput.h:149`` + ``OutputBuffer`` +
 ``Exchange`` (SURVEY.md §3.5/§5.8) — the destination-buffered, ack-based
-pull shuffle. TPU-native redesign: partition+serialize becomes a device-side
+pull shuffle. Device-native redesign: partition+serialize becomes a device-side
 bucketize (radix partition by destination) and the wire protocol becomes a
 single ``lax.all_to_all`` over the mesh axis; backpressure/acks are replaced
 by fixed-size exchange windows with row-count headers (padding instead of

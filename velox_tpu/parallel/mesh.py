@@ -1,7 +1,7 @@
 """Device mesh helpers.
 
 Role parity: the reference's Task::start driver/thread topology
-(velox/exec/Task.h:166-172) — on TPU the execution resources are mesh axes,
+(velox/exec/Task.h:166-172) — here the execution resources are mesh axes,
 not threads. One axis ``d`` carries split/data parallelism (the analogue of
 N drivers each pulling splits); exchanges become collectives over it
 (SURVEY.md §5.8 mapping).

@@ -239,8 +239,7 @@ class Parser:
                 return ex.lit(float(txt))
             if "." in txt:
                 # Exact numeric literals are DECIMAL (standard SQL / Presto
-                # semantics) — critical on TPU where f64 is emulated at
-                # ~48-bit precision and ~100x slower than ints.
+                # semantics): money math stays exact.
                 int_part, frac = txt.split(".", 1)
                 s = len(frac)
                 digits = (int_part + frac).lstrip("0") or "0"

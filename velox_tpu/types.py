@@ -1,7 +1,7 @@
-"""Logical type system for the TPU-native query engine.
+"""Logical type system for the query engine.
 
 Role parity: ``velox/type/Type.h`` (TypeKind enum at Type.h:60-81, RowType,
-type parsing/serde). TPU-first departures:
+type parsing/serde). Departures for the device:
 
 * Every scalar type carries its **device dtype** (the jnp dtype its column
   data uses in HBM). SQL logical types map onto dense numeric device arrays:

@@ -4,9 +4,8 @@ Role parity: ``velox/type/StringView.h:51`` (inline/pointered string
 views over shared byte buffers) and the byte-level string kernels of
 ``velox/functions/prestosql/StringFunctions.h`` / ``functions/lib/
 StringImpl``. The reference's layout — 16-byte views pointing into
-variable-length buffers — is built for pointer-chasing CPUs; a TPU has
-no efficient random byte addressing, so the layout here is the one the
-VPU wants:
+variable-length buffers — is built for pointer-chasing CPUs; on a device
+random byte addressing is costly, so the layout here is dense:
 
   * ``data``: a dense ``uint8[capacity, W]`` byte matrix, zero-padded,
     where W is the column's size class (16/32/64/.../2048 — pow2 of the
@@ -18,13 +17,12 @@ VPU wants:
 Dictionary encoding (vector/device.py Dictionary) remains available as
 an *encoding* for low-cardinality columns; this flat representation is
 the scaling path for high-cardinality VARCHAR (UUIDs, URLs, comments)
-where a host dictionary would materialize the whole column on the host
-(VERDICT r3 missing #1).
+where a host dictionary would materialize the whole column on the host.
 
 Ordering contract: big-endian packed u32 words over zero-padded bytes
 compare exactly like byte-wise lexicographic order, with equal-prefix
 ties broken by length — so ``sort_key_words`` emits K u32 lanes + a
-length lane and raw strings ride the SAME radix/lax.sort machinery as
+length lane and raw strings ride the SAME lax.sort machinery as
 integral keys (exec/sort.py), giving sort/group-by/join on raw strings
 with zero new sorting code.
 """
@@ -181,7 +179,7 @@ def to_arrow(bytes2d: np.ndarray, lens: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# device kernels (dense VPU work over (cap, W) u8)
+# device kernels (dense work over (cap, W) u8)
 # ---------------------------------------------------------------------------
 
 def sort_key_words(bytes2d, lens) -> Tuple[List[jnp.ndarray], List[int]]:
@@ -261,7 +259,7 @@ def _char_starts(bytes2d, lens):
 
 def shift_left(bytes2d, lens, nbytes) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Drop the first `nbytes` (per-row i32) bytes. take_along_axis over
-    the lane axis — a VPU-local gather, not an HBM scatter."""
+    the lane axis — a row-local gather, not an HBM scatter."""
     cap, w = bytes2d.shape
     lane = jnp.arange(w, dtype=jnp.int32)[None, :]
     src = lane + nbytes[:, None]
@@ -364,8 +362,8 @@ def ends_with(bytes2d, lens, needle: bytes) -> jnp.ndarray:
 
 def contains_at(bytes2d, lens, needle: bytes) -> jnp.ndarray:
     """First BYTE position (0-based) of `needle`, or -1. Dense windowed
-    compare at every offset — O(W·|needle|) VPU lanes, zero random HBM
-    access (the TPU answer to memmem)."""
+    compare at every offset — O(W·|needle|) lanes, zero random HBM
+    access (the dense answer to memmem)."""
     cap, w = bytes2d.shape
     p = len(needle)
     if p == 0:
